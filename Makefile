@@ -20,5 +20,5 @@ native-sanitize:
 	/tmp/native_sanitize_check
 
 clean:
-	rm -f $(NATIVE)/libsais_tpu.*.so
+	rm -f $(NATIVE)/libbst_native.*.so
 	rm -rf .jax_cache

@@ -1,16 +1,17 @@
-"""bioseqdb_tpu — a TPU-native short-read alignment engine.
+"""bioseqdb_tpu — a short-read alignment engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability of
+A from-scratch JAX/XLA re-design of the capability of
 unneon/bioseqdb (a Postgres extension wrapping libbwa/htslib): BWA-MEM
 style mapping of query reads against an indexed reference, exposed as an
 ``align(reads, index)`` API plus bulk FASTA/FASTQ ingest, with the
 FM-index held in packed int32 device arrays and the seeding/chaining/
-extension stages running as batched TPU programs.
+extension stages running as batched device programs (an NVIDIA GPU;
+the CPU backend for tests).
 
 Package map (SURVEY.md §7):
 - ``seq``     sequence codec (NUCLSEQ replacement)
 - ``io``      FASTA/FASTQ ingest -> packed batches (bioseqdb-import analogue)
-- ``index``   FM-index build (native SA-IS) + TPU array layout + serialization
+- ``index``   FM-index build (native SA-IS) + device array layout + serialization
 - ``kernels`` device ops: Occ/rank gathers, SMEM seeding, chaining, banded SW
 - ``align``   the align() pipeline + options
 - ``sam``     CIGAR/SAM emission

@@ -1,6 +1,6 @@
 """Columnar (arrays-first) alignment results.
 
-The TPU-native serving format: one arrays-of-columns record batch
+The serving format: one arrays-of-columns record batch
 instead of per-read Python objects. Carries exactly the information of
 the reference's per-match record (``BwaMatch``, bwa.h:15-30 /
 ``bwa_result``, bioseqdb--0.0.0.sql:196-212) for each read's PRIMARY

@@ -406,7 +406,7 @@ def finalize_pairs(
 
 def finalize_pairs_columns(idx: FMIndex, opt: AlignOptions,
                            batch1, out1, batch2, out2):
-    """Columnar PE finalize (the throughput path, VERDICT r1 item 5):
+    """Columnar PE finalize (the throughput path):
     the per-pair Python of `_fast_pair_one` — orientation/insert check,
     erfc pairing bonus, PE MAPQ uplift, flags/TLEN — computed as ARRAYS
     over every fast pair at once; only rescue-candidates/multi-region

@@ -37,6 +37,8 @@ def _cmd_index(args) -> int:
 
 
 def _cmd_align(args) -> int:
+    import contextlib
+
     import jax
 
     if args.cpu:
@@ -46,13 +48,10 @@ def _cmd_align(args) -> int:
     from bioseqdb_tpu.index.fmindex import FMIndex
     from bioseqdb_tpu.io.batch import pack_reads_from_file
     from bioseqdb_tpu.sam.emit import emit_sam, sam_header
-
-    import contextlib
-
-    import jax
-
-    from bioseqdb_tpu.align.finalize import finalize_batch
+    from bioseqdb_tpu.utils.compile_cache import enable_compile_cache
     from bioseqdb_tpu.utils.profiling import StageTimer, device_trace
+
+    enable_compile_cache()
 
     idx = FMIndex.load(args.index)
     opts = AlignOptions(
@@ -134,35 +133,22 @@ def _cmd_align(args) -> int:
 
 def _drain(aligner, idx, batch, pending, out, timer,
            read_group=None) -> int:
-    """Finalize one batch. Reads are stateless work items, so recovery is
-    batch-granular (SURVEY.md §5): a failed batch is re-fed once from the
-    host copy before being reported and skipped."""
+    """Finalize one batch and write its SAM records. A failure raises:
+    a batch is never skipped."""
     import jax
 
     from bioseqdb_tpu.align.columns import finalize_columns
     from bioseqdb_tpu.sam.emit import emit_sam_columns
 
-    for attempt in (1, 2):
-        try:
-            with timer.stage("device_wait", batch.n):
-                regions = jax.device_get(pending)
-            with timer.stage("finalize", batch.n):
-                regions = aligner.absorb_overflow(batch, regions)
-                cols = finalize_columns(idx, aligner.options, batch, regions)
-                seqs = [batch.read_text(i) for i in range(batch.n)]
-                out.write(emit_sam_columns(cols, idx, batch, header=False,
-                                           seqs=seqs,
-                                           read_group=read_group))
-            return batch.n
-        except Exception as e:  # device flake: retry the batch once
-            if attempt == 2:
-                print(f"[bioseqdb-tpu] batch of {batch.n} reads failed twice "
-                      f"({type(e).__name__}: {e}); skipping", file=sys.stderr)
-                return 0
-            print(f"[bioseqdb-tpu] batch failed ({type(e).__name__}); "
-                  "retrying once", file=sys.stderr)
-            pending = aligner.device_regions(batch)
-    return 0
+    with timer.stage("device_wait", batch.n):
+        regions = jax.device_get(jax.block_until_ready(pending))
+    with timer.stage("finalize", batch.n):
+        regions = aligner.absorb_overflow(batch, regions)
+        cols = finalize_columns(idx, aligner.options, batch, regions)
+        seqs = [batch.read_text(i) for i in range(batch.n)]
+        out.write(emit_sam_columns(cols, idx, batch, header=False, seqs=seqs,
+                                   read_group=read_group))
+    return batch.n
 
 
 def _cmd_import(args) -> int:
@@ -224,7 +210,6 @@ def main(argv=None) -> int:
     pa.add_argument("reads")
     pa.add_argument("--mate", help="mate FASTA/FASTQ for paired-end alignment")
     pa.add_argument("-o", "--output", default="-")
-    # full-mode device cost is ~per-read-constant (BENCH_NOTES.md);
     # moderate batches compile fast and pipeline well with finalize
     pa.add_argument("--batch-size", type=int, default=2048)
     # scoring/heuristic knobs mirroring bwa mem's flags and the reference

@@ -9,7 +9,7 @@ SMEM seeding (bwt_smem1a / mem_collect_intv), seed chaining (mem_chain
 primary marking (mem_mark_primary_se), MAPQ (mem_approx_mapq_se), and
 finalization with CIGAR/NM (mem_reg2aln over ksw_global) — against this
 package's FM-index. No bwa binary exists in this environment, so this
-oracle *is* the correctness gate: the batched TPU pipeline must
+oracle *is* the correctness gate: the batched device pipeline must
 reproduce it, and tests pin both against brute-force oracles where one
 exists.
 

@@ -2,16 +2,17 @@
 
 The reference has no parallelism at all — one Postgres backend process
 per connection, one `mem_align1` call per row (SURVEY.md §2b). This
-module introduces it TPU-natively: a 1-D ``data`` mesh over all chips
+module introduces it: a 1-D ``data`` mesh over all devices
 (across hosts when `jax.distributed` is initialized), read batches
 sharded along the batch axis with ``NamedSharding``, and the FM-index
 replicated to every device — the small-genome configuration of the
 north star. Every pipeline stage is elementwise over reads, so XLA
-partitions the jitted program with zero collectives on the hot path;
-hit merging happens host-side per shard.
+partitions the jitted program with zero collectives on the hot path
+(the banded-SW kernel runs per shard under ``shard_map``,
+kernels/extend.py); hit merging happens host-side per shard.
 
-(Human-scale BWT-interval index sharding — the ``index`` mesh axis with
-ring interval exchange — is the follow-on documented in SURVEY.md §5.)
+(Human-scale BWT-interval index sharding — the ``index`` mesh axis —
+lives in dist/shard_index.py.)
 """
 
 from __future__ import annotations

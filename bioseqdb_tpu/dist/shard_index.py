@@ -13,7 +13,7 @@ replicated path (kernels/fm.py with ``axis=...``): every device answers
 each query against its local row range (out-of-range rows contribute
 zero) and a ``psum`` over the index axis selects the owner — each rank
 is owned by exactly one shard, so the sum *is* the value. One
-collective of a few ints per lane per step rides the ICI; the tables
+collective of a few ints per lane per step crosses the interconnect; the tables
 never move.
 
 ``full_align_step_sharded`` runs the ENTIRE device pipeline (seeding,
@@ -48,8 +48,7 @@ class FMSharded(NamedTuple):
     """FM-index with rank tables split by row range across ``index``.
 
     Device layouts follow kernels/fm.py FMDevice (octo block rows, flat
-    SA-mark arrays) — TPU tiled layouts pad narrow minor dims to 128
-    int32, so the natural shapes would blow HBM at human scale."""
+    SA-mark arrays)."""
 
     L2: jnp.ndarray            # (5,) replicated
     primary: jnp.ndarray       # () replicated
@@ -208,7 +207,7 @@ def full_align_step_sharded(
     fms: FMSharded, codes, lens, mat, mesh: Mesh, opt, n_refs: int,
     axis: str = "index", data_axis: str | None = None,
     max_seeds: int = 64, max_chains: int = 16, sa_interval: int = 32,
-    keep_mems: bool = False, max_cand: int = 0,
+    keep_mems: bool = False, max_cand: int = 0, sw_kernel: str = "xla",
 ):
     """The full device pipeline over a (data x index) mesh: reads shard
     along ``data`` (if the mesh has that axis), tables along ``index``.
@@ -252,7 +251,7 @@ def full_align_step_sharded(
             o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
             e_ins=opt.e_ins, bandwidth=opt.bandwidth, zdrop=opt.zdrop,
             pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
-            shard_axis=axis,
+            shard_axis=axis, sw_kernel=sw_kernel,
         )
         overflow = (mems["overflow"] | seeds["overflow"]
                     | chains["overflow"] | ext["overflow"])

@@ -22,7 +22,7 @@ def adaptive_sa_interval(doubled_len: int) -> int:
     """SA sample interval by doubled-text size.
 
     bwa hardcodes 32 (bwt_cal_sa(bwt, 32), bwa.cpp:113) because its
-    on-disk .sa size mattered; on TPU the sampled SA is an in-HBM int32
+    on-disk .sa size mattered; here the sampled SA is an on-device int32
     array and the resolve kernel's LF walk is a fixed ``interval - 1``
     trip loop of two row-gathers per lane — so a denser sample trades
     cheap HBM for a ~(interval_a-1)/(interval_b-1) resolve speedup.

@@ -1,10 +1,10 @@
 """FM-index over the doubled (forward + reverse-complement) reference.
 
-TPU-native replacement for libbwa's ``bwt_t``/``bntseq_t`` machinery
+Replacement for libbwa's ``bwt_t``/``bntseq_t`` machinery
 (reference: bioseqdb/bwa.cpp:20-53 pac2bwt, :107-128 build — SA-IS BWT,
 Occ checkpointing via bwt_bwtupdate_core, sampled SA via bwt_cal_sa(32)).
 Instead of bwa's byte-stream BWT with interleaved checkpoints, the index
-is a set of flat arrays laid out for TPU gathers:
+is a set of flat arrays laid out for device row gathers:
 
 - ``blocks`` int32[n_blocks, 12]: per 128 bases of the stored BWT, four
   exclusive Occ checkpoint counts followed by eight packed words

@@ -26,7 +26,7 @@ def _lib_path() -> str:
     for src in _SRCS:
         with open(src, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(_DIR, f"libsais_tpu.{h.hexdigest()[:16]}.so")
+    return os.path.join(_DIR, f"libbst_native.{h.hexdigest()[:16]}.so")
 
 
 def get_lib() -> ctypes.CDLL:

@@ -7,7 +7,7 @@
 // host finalize hot path (~1000x the Python speed). Must match the
 // Python kernel bit-for-bit including tie-breaks (tests pin them).
 //
-// Compiled into libsais_tpu.so alongside the SA-IS builder.
+// Compiled into libbst_native.so alongside the SA-IS builder.
 
 #include <cstdint>
 #include <cstring>

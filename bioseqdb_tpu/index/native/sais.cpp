@@ -1,6 +1,6 @@
 // Suffix-array construction (SA-IS) — the native heart of index building.
 //
-// TPU-native replacement for the role of libbwa's internal `is_bwt`
+// Replacement for the role of libbwa's internal `is_bwt`
 // (reference: bioseqdb/bwa.cpp:10,47 — SA-IS over the doubled
 // fwd+revcomp pac, 32-bit limited). This is a clean-room textbook SA-IS
 // (Nong, Zhang & Chan 2009: induced sorting with LMS substrings),
@@ -12,7 +12,7 @@
 //     appended sentinel; SA has n+1 entries, SA[0] = n (sentinel row).
 //   sais_u8_i64: same with 64-bit indices.
 //
-// Compile: g++ -O3 -fPIC -shared -o libsais_tpu.so sais.cpp
+// Compile: g++ -O3 -fPIC -shared -o libbst_native.so sais.cpp
 
 #include <cstdint>
 #include <vector>

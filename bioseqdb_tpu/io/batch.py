@@ -2,9 +2,9 @@
 
 Replaces the reference's one-row-at-a-time SPI cursor feed
 (extension.cpp:156-195, batch size 1) with rectangular uint8 code
-arrays sized for TPU: reads are padded to a common width and batches
-padded to a lane-friendly count, so every downstream kernel sees static
-shapes (SURVEY.md §7 "irregular control flow on TPU").
+arrays: reads are padded to a common width and batches padded to a
+lane-friendly count, so every downstream kernel sees static
+shapes (SURVEY.md §7 "irregular control flow").
 
 Code convention inside batches: A/C/G/T = 0..3, ``AMBIG_CODE`` (4) for
 any IUPAC-ambiguous base *and* for tail padding — code 4 never matches

@@ -1,12 +1,11 @@
 """Dense (one-hot) replacements for tiny-width gather/scatter patterns.
 
-XLA's TPU gather/scatter costs ~19 ns per gathered/scattered ROW
-regardless of width (BENCH_NOTES.md), so inside while-loop bodies even a
-(B,)-shaped ``take_along_axis`` or an ``x.at[rows, slot].set`` costs as
-much as a full FM-index rank query. When the indexed axis is small
-(seed/chain/region slot tables, 4-code picks, read columns), a masked
-select + reduction streams at full vector bandwidth instead — orders of
-magnitude cheaper. These helpers make that substitution uniform.
+When the indexed axis is small (seed/chain/region slot tables, 4-code
+picks, read columns), a masked select + reduction streams at full vector
+bandwidth where a gather or scatter would pay per row. The helpers were
+chosen on another accelerator, whose gathers and scatters cost per row
+regardless of width; their cost on the GPU is not measured (ROADMAP
+Speed item 7). These helpers make that substitution uniform.
 
 All helpers preserve dtype and work under vmap/sharding (pure
 elementwise + reductions, no gather primitives).

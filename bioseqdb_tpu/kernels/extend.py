@@ -5,8 +5,9 @@ read, seeds are visited in the exact reference order — kept chains by
 descending weight, seeds within a chain by descending score (ties to
 the later seed) — and each visited seed is either skipped (contained in
 an accumulated region, with the overlap-rescue test) or extended left
-and right with the batched banded-SW kernel (kernels/sw.py), including
-the reference's band-doubling retry.
+and right with the batched banded-SW kernel (kernels/sw_extend.cu on a
+GPU, kernels/sw.py on the CPU), including the reference's band-doubling
+retry.
 
 The sequential per-read loop is restructured into global *rounds*: in
 each round every lane scans forward through its seed order, finalizing
@@ -40,10 +41,20 @@ NEG = -(1 << 30)  # plain int: a module-level jnp scalar would be created UNDER
 # crashes in the jit fastpath)
 MAX_BAND_TRY = 2
 
-ROW_BASES = 2048  # bases per packed-pac row: 128 int32 words — EXACTLY
-# one (8,128)-tile row, so the on-device table carries zero tiled-layout
-# column padding (an (n, 8) layout would occupy 16x its logical bytes
-# on HBM; 24.8 GB at GRCh38 scale — see kernels/fm.py pack_oct)
+
+def sw_kernel_for(platform: str) -> str:
+    """The banded-SW kernel for a JAX platform: the CUDA kernel
+    (kernels/sw_cuda.py) on a GPU, the XLA kernel (kernels/sw.py, the
+    reference) on the CPU. Any other platform has no kernel here."""
+    kernels = {"gpu": "cuda", "cpu": "xla"}
+    if platform not in kernels:
+        raise ValueError(f"no banded-SW kernel for platform {platform!r}")
+    return kernels[platform]
+
+
+ROW_BASES = 2048  # bases per packed-pac row: 128 int32 words. The width
+# was chosen for another accelerator's tiled layout and is not measured
+# on the GPU (ROADMAP Speed item 7)
 
 
 def pack_doubled_rows(pac: np.ndarray) -> np.ndarray:
@@ -51,10 +62,10 @@ def pack_doubled_rows(pac: np.ndarray) -> np.ndarray:
     16 bases per int32 word (big-endian within the word, matching the
     index packing), ROW_BASES bases per row.
 
-    SW target windows then fetch as a handful of 32-byte ROW gathers +
-    dense unpacking instead of per-element int8 gathers (XLA's TPU
-    gather costs per row, so element gathers are ~35x more expensive —
-    BENCH_NOTES.md).
+    SW target windows then fetch as a handful of row gathers + dense
+    unpacking instead of per-element int8 gathers. The choice was made
+    on another accelerator, whose gathers cost per row; it is not
+    measured on the GPU.
 
     Streams in chunks: at GRCh38 scale the naive uint32 materialization
     of the doubled text costs ~37 GB of host temps."""
@@ -149,7 +160,7 @@ def fetch_doubled(pac_dev, l_pac, seq_len, positions, axis=None):
         "max_rounds", "max_regs", "max_qlen", "max_tlen",
         "match_score", "mismatch_penalty", "o_del", "e_del", "o_ins", "e_ins",
         "bandwidth", "zdrop", "pen_clip5", "pen_clip3", "shard_axis",
-        "use_pallas_sw", "sw_sort",
+        "sw_kernel", "sw_sort", "sw_mesh",
     ),
 )
 def extend_all(
@@ -169,13 +180,22 @@ def extend_all(
     max_qlen: int = 0,
     max_tlen: int = 0,
     shard_axis: str | None = None,
-    use_pallas_sw: bool = False,
-    sw_sort: bool = True,
+    sw_kernel: str = "xla",
+    sw_sort: bool | None = None,
+    sw_mesh=None,
 ):
     """Run the extension stage. Returns per-read region table:
     rb/re/qb/qe/score/truesc/w/seedlen0 int32[B, R] + n_regs + overflow.
     seedcov is filled per region; frac_rep is the caller's concern.
+
+    ``sw_kernel`` names the banded-SW kernel (``sw_kernel_for``);
+    ``sw_sort`` orders lanes by expected DP rows around each SW call
+    (default: exactly for the CUDA kernel, whose lanes exit one by one);
+    ``sw_mesh``, a mesh with a ``data`` axis over which the batch is
+    sharded, runs each SW call per shard under ``shard_map``.
     """
+    if sw_sort is None:
+        sw_sort = sw_kernel == "cuda"
     B, S = seeds["rbeg"].shape
     C = chains["pos"].shape[1]
     R = max_regs
@@ -346,52 +366,39 @@ def extend_all(
         return cursor, slot, todo
 
     def sw_one(qbuf, qn, tbuf, tn, w, bonus, h0):
-        if use_pallas_sw:
-            from bioseqdb_tpu.kernels.sw_pallas import sw_extend_batch_pallas
+        if sw_kernel == "cuda":
+            from bioseqdb_tpu.kernels.sw_cuda import sw_extend_batch_cuda
 
-            # block_lanes=128: measured sweep on v5e (tools/ab_sw_pallas)
-            # 8/16/32/64/128/256/512 -> 292/178/114/82/58/110/108 ms; 128
-            # fills the 8x128 VPU lanes per sublane row, larger blocks
-            # lose the per-block early exit
-            return sw_extend_batch_pallas(
+            return sw_extend_batch_cuda(
                 qbuf, qn, tbuf, tn, w, h0,
                 match_score=match_score, mismatch_penalty=mismatch_penalty,
                 o_del=o_del, e_del=e_del, o_ins=o_ins, e_ins=e_ins,
-                end_bonus=bonus, zdrop=zdrop, max_qlen=max_qlen,
-                block_lanes=128,
-            )
+                end_bonus=bonus, zdrop=zdrop)
         return sw_extend_batch(qbuf, qn, tbuf, tn, mat, o_del, e_del,
                                o_ins, e_ins, w, bonus, zdrop, h0, max_qlen)
 
-    def sw_with_retry(qbuf, qn, tbuf, tn, h0, bonus, active, prev_sc):
+    def sw_with_retry_local(qbuf, qn_a, tbuf, tn, h0, prev_sc, active,
+                            bonus):
         """One ksw_extend with the reference's MAX_BAND_TRY band doubling:
         retry at twice the band iff the try-1 score differs from the
         pre-extension score AND the max diagonal offset filled the band.
 
-        Lanes are SORTED by expected DP row count before the Pallas call
-        (and unpermuted after — results are identical): the kernel's
-        early exit is per 128-lane block, so an unsorted batch pays each
-        block's slowest lane (~max qlen+band rows) while the sorted one
-        pays the mean, and the sparse active lanes of later rounds pack
-        into a few blocks instead of keeping every block alive.
-
-        ``sw_sort`` rides in as a STATIC extend_all argument (the
-        BST_SW_SORT env var is read by the non-traced caller,
-        Aligner.device_regions) so toggling it is part of the jit cache
-        key rather than silently captured at first trace."""
-        qn_a = jnp.where(active, qn, 0)
-        w1 = jnp.full(B, bandwidth, i32)
-        do_sort = use_pallas_sw and sw_sort
-        if do_sort:
+        With ``sw_sort`` the lanes are sorted by expected DP row count
+        before the kernel runs and unpermuted after; results are
+        identical. The CUDA kernel's lanes exit one by one, so a sorted
+        batch lets a warp's lanes finish together, and the sparse active
+        lanes of later rounds pack into a few warps."""
+        n = qbuf.shape[0]
+        w1 = jnp.full(n, bandwidth, i32)
+        if sw_sort:
             # row count until the band empties ~ min(tlen, qlen + band);
-            # idle lanes sort last so their blocks exit instantly
+            # idle lanes sort last so their warps exit at once
             work = jnp.where(qn_a > 0, jnp.minimum(tn, qn_a + bandwidth), -1)
             perm = jnp.argsort(-work).astype(i32)
             srt = lambda x: jnp.take(x, perm, axis=0)
-            qbuf, qn_a, tbuf, tn, h0, prev_sc = (
+            qbuf, qn_a, tbuf, tn, h0, prev_sc, active = (
                 srt(qbuf), srt(qn_a), srt(tbuf), srt(tn), srt(h0),
-                srt(prev_sc))
-            active = srt(active)
+                srt(prev_sc), srt(active))
         r1 = sw_one(qbuf, qn_a, tbuf, tn, w1, bonus, h0)
         retry = (
             active
@@ -409,11 +416,22 @@ def extend_all(
         )
         # the reference keeps the wider-band results whenever it retried
         out = {k: jnp.where(retry, r2[k], r1[k]) for k in r1}
-        aw = jnp.where(retry, w2, w1)
-        if do_sort:
-            inv = jnp.zeros(B, i32).at[perm].set(jnp.arange(B, dtype=i32))
+        out["aw"] = jnp.where(retry, w2, w1)
+        if sw_sort:
+            inv = jnp.zeros(n, i32).at[perm].set(jnp.arange(n, dtype=i32))
             out = {k: jnp.take(v, inv, axis=0) for k, v in out.items()}
-            aw = jnp.take(aw, inv, axis=0)
+        return out
+
+    def sw_with_retry(qbuf, qn, tbuf, tn, h0, bonus, active, prev_sc):
+        qn_a = jnp.where(active, qn, 0)
+        run = functools.partial(sw_with_retry_local, bonus=bonus)
+        if sw_mesh is not None:
+            from jax.sharding import PartitionSpec as P
+
+            run = jax.shard_map(run, mesh=sw_mesh, in_specs=P("data"),
+                                out_specs=P("data"), check_vma=False)
+        out = run(qbuf, qn_a, tbuf, tn, h0, prev_sc, active)
+        aw = out.pop("aw")
         return out, aw
 
     def round_body(_, carry):
@@ -425,8 +443,8 @@ def extend_all(
 
         # after the first 1-2 rounds most batches have ZERO active lanes
         # left (short reads mostly extend once) — but the SW launches
-        # still cost real time per round (pallas grid overhead plus
-        # whole blocks kept alive by a stray lane). Runtime-skip the
+        # still cost real time per round (launch overhead plus whole
+        # warps kept alive by a stray lane). Runtime-skip the
         # entire extension body when nothing is active; only the scan
         # above is semantically needed every round.
         def ext_body(carry2):

@@ -4,9 +4,9 @@ The device-side counterpart of index/fmindex.py's scalar reference
 queries — every function here must agree with it bit-for-bit
 (tests/test_fm_device.py). This is where the reference's per-read
 ``bwt_occ``/``bwt_2occ4`` pointer-chasing (libbwa, consumed at
-bwa.cpp:149) becomes TPU-shaped work: one 48-byte row gather from the
+bwa.cpp:149) becomes batched device work: one row gather from the
 interleaved ``blocks`` array per rank query, then vectorized 2-bit
-popcounts on the VPU, batched over thousands of read lanes.
+popcounts, batched over thousands of read lanes.
 
 Rank values follow the index scale: int32 below 2^31 doubled bases,
 int64 beyond (FMDevice.from_host auto-selects; int64 requires jax x64).
@@ -45,18 +45,14 @@ def pack_oct(blocks: np.ndarray, sa_bits: np.ndarray | None = None
              ) -> np.ndarray:
     """Host (n_blocks, 12) Occ table -> device octo layout (n/8, 128).
 
-    TPU tiled layouts pad a 2-D array's minor dim to 128 elements
-    inside compiled programs, so the natural (n, 12) table would occupy
-    ~10.7x its logical bytes on HBM (24.8 GB at GRCh38 scale — measured
-    OOM), and a 96-int32 row already occupied 128 on HBM. The row is
-    therefore widened to a FULL 128 int32: cols 0:96 hold the 8 Occ
-    blocks (4 checkpoint + 8 packed-text words each), cols 96:128 hold
-    the 8 blocks' SA-mark bitmap words (``sa_bits[:, 1:]``, 4 words per
-    128 ranks) — the formerly wasted tile padding now lets the seeding
-    loop's in-loop fast-forward run LF walks + marked-rank checks
-    through its ONE shared gather (VERDICT r2 item 1). Wide rows also
-    gather FASTER than 48-int32 quads (96w 69 us vs 48w 83 at 8K rows,
-    BENCH_NOTES width sweep).
+    The row is a FULL 128 int32: cols 0:96 hold the 8 Occ blocks (4
+    checkpoint + 8 packed-text words each), cols 96:128 hold the 8
+    blocks' SA-mark bitmap words (``sa_bits[:, 1:]``, 4 words per 128
+    ranks), so the seeding loop's in-loop fast-forward runs LF walks +
+    marked-rank checks through its ONE shared gather. The width was
+    chosen for another accelerator's tiled layout, which pads a minor
+    dim to 128 elements; it is not measured on the GPU (ROADMAP Speed
+    item 7).
 
     The mark words of rank-block ``b`` land in octo row ``b >> 3`` cols
     ``96 + 4*(b & 7)``; note marks are RANK-indexed while Occ blocks are
@@ -146,9 +142,9 @@ class FMDevice(NamedTuple):
 
 def _small_rows(table: jnp.ndarray, idx: jnp.ndarray, limit: int = 128):
     """Row lookup that goes dense (one-hot select) when the table is
-    small: XLA's TPU gather costs per ROW (~19 ns each) regardless of
-    table size, so for the handful-of-rows major-checkpoint tables a
-    masked reduction is far cheaper inside loop bodies."""
+    small: for the handful-of-rows major-checkpoint tables a masked
+    reduction replaces a per-row gather inside loop bodies (chosen on
+    another accelerator; not measured on the GPU)."""
     n = table.shape[0]
     if n > limit:
         return table[idx]
@@ -198,10 +194,9 @@ def _block_row(fm: FMDevice, blk: jnp.ndarray, axis: str | None):
     """Gather the 12-int32 Occ block row ``blk`` from the octo layout
     (pack_oct: 8 blocks per 96-int32 device row).
 
-    v5e dynamic gathers with rows >= 128 bytes lower to a ~2x cheaper
-    per-row path than 48-byte rows, and wide rows measured faster
-    still (BENCH_NOTES width sweep); the 128-int32 octo row also keeps
-    the tiled on-device layout at exactly its logical bytes."""
+    The 128-int32 row width was chosen on another accelerator, where
+    wide row gathers were cheaper per row and matched its tiled layout;
+    it is not measured on the GPU (ROADMAP Speed item 7)."""
     row128, mine = _table_row(fm.blocks, blk >> 3, axis)
     sub = row128[..., :96].reshape(row128.shape[:-1] + (OCT_BLOCKS, 12))
     pick_idx = jnp.broadcast_to((blk & 7).astype(jnp.int32)[..., None],
@@ -300,10 +295,8 @@ def quad_table(blocks: jnp.ndarray) -> jnp.ndarray:
 
     The seeding loop's shared fetch reads whole rows; 48-int32 rows cut
     the gathered bytes 2.7x and the 8-way block pick to a 4-way pick
-    over 1/3 the input (round-4 cost split: that pick was ~33% of the
-    full-width body cycles). The quad table pads its 48-lane minor dim
-    to 128 on HBM (2x the octo table's physical bytes) — callers keep
-    it only while the octo layout's mark columns are not needed."""
+    over 1/3 the input. Callers keep it only while the octo layout's
+    mark columns are not needed."""
     n8 = blocks.shape[0]
     occ = blocks[:, :96]
     return occ.reshape(n8 * 2, 48)
@@ -520,7 +513,7 @@ def sa_resolve(fm: FMDevice, ranks: jnp.ndarray, sa_interval: int = 32,
 
     With position-sampled SA the LF walk is bounded by ``sa_interval - 1``
     steps, so this is a fixed-trip loop with lane masking — no
-    data-dependent shapes, TPU-friendly (SURVEY.md §7).
+    data-dependent shapes (SURVEY.md §7).
     """
     r = ranks.astype(fm.sa_sample.dtype)
     steps = jnp.zeros_like(r)

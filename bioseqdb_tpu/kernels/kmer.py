@@ -3,12 +3,12 @@ O(1) dependent steps for the common case.
 
 Role matched: the seeding half of ``mem_align1`` (reference
 bwa.cpp:149) — the same job as kernels/seed.py's FM state machine, with
-a different algorithmic shape (VERDICT r4 item 1). Three rounds of
-measurement established that the FM backward-extension loop is bound by
-the ~77 us fixed cost of each DEPENDENT gather step (~460-700 steps per
-read; BENCH_NOTES), while INDEPENDENT gathers batch into one kernel at
-~3-22 ns/row. This module restructures seeding so the memory traffic is
-a handful of large independent gathers:
+a different algorithmic shape. On the accelerator this was designed
+for, the FM backward-extension loop was bound by the fixed cost of each
+DEPENDENT gather step (~460-700 steps per read), while INDEPENDENT
+gathers batched into one kernel; the GPU's costs are not measured yet
+(ROADMAP Speed item 2). This module restructures seeding so the memory
+traffic is a handful of large independent gathers:
 
 1. Select the read's (k=14, w=6) minimizers — for every window of 6
    consecutive k-mer starts, the leftmost hash-minimal k-mer. The
@@ -452,8 +452,8 @@ def collect_seeds_kmer(
         return diag_all
 
     # ---- dedup diagonals: successive masked minima (dmax is small, so
-    # dmax passes of a (B, nmz*smax) min-reduce beat two full sorts —
-    # measured 26 ms -> ~4 ms at B=16K) ----
+    # dmax passes of a (B, nmz*smax) min-reduce replace two full sorts;
+    # chosen on another accelerator, not measured on the GPU) ----
     flat = diag_all.reshape(B, nmz_c * smax)
     DC = min(dmax, flat.shape[1])
     cur = jnp.full((B,), -(1 << 30), i32)

@@ -6,9 +6,10 @@ import os
 
 import jax
 
-# while/fori iteration boundaries cost ~40 us on v5e regardless of the
-# body; unrolling state-machine steps amortizes that. Env-tunable for
-# A/B (BST_LOOP_UNROLL=1 disables).
+# Unrolling state-machine steps amortizes the fixed cost of each
+# while/fori iteration boundary. The value was chosen on another
+# accelerator and is not measured on the GPU (ROADMAP Speed item 7).
+# Env-tunable for A/B (BST_LOOP_UNROLL=1 disables).
 LOOP_UNROLL = int(os.environ.get("BST_LOOP_UNROLL", "4"))
 
 
@@ -23,10 +24,9 @@ def chunked_while(cond, body, state, chunk: int = 32, unroll: int | None = None)
     (true of all the masked per-lane state machines here), so the up to
     ``chunk - 1`` extra iterations are harmless.
 
-    ``unroll`` composes that many body calls per loop iteration: each
-    while/fori iteration boundary costs ~40 us on v5e regardless of the
-    body (measured, tools/microbench_pair_ops.py unroll_test), so
-    dependent-chain state machines with ~600 trips save ~25% wall time.
+    ``unroll`` composes that many body calls per loop iteration, which
+    amortizes the fixed cost of each iteration boundary over dependent-
+    chain state machines with hundreds of trips.
     """
     if unroll is None:
         unroll = LOOP_UNROLL

@@ -9,23 +9,19 @@ FMD extension — two occ4 row gathers across all lanes — so the
 irregular per-read control flow costs control-overhead only, while the
 memory traffic stays perfectly batched (SURVEY.md §7).
 
-Round-4 cost finding (tools/seed_cost_split.py + hlo_cycles.py): the
-per-iteration "op floor" that rounds 2-3 attributed to dispatch latency
-was dominated by DATA — the dense one-hot column picks over the
-(B, W) int32 codes array were 65.9% of XLA's estimated body cycles at
-B=16K (two ~10.5 MB scans per step). The loop therefore carries reads
-as PACKED STREAMS instead: ``cpk`` (16 2-bit codes per int32 word,
+The loop carries reads as PACKED STREAMS rather than the (B, W) int32
+codes array, whose dense one-hot column picks dominated the loop body
+on the accelerator this was first built for (not measured on the GPU):
+``cpk`` (16 2-bit codes per int32 word,
 big-endian), ``abm`` (ambiguity bitmap, 1 bit/code) and ``jcw`` (r3
 jump-window-clean bitmap) — a column read is a ~16x narrower word pick
 plus shifts, and the r3 jump key is reassembled from two adjacent words
 (funnel shift + 2-bit reversal) instead of a precomputed (B, W) table.
 
-The round-3 in-loop s==1 fast-forward machinery (six extra phases
-riding the shared gather) was measured NET NEGATIVE in every
-configuration (ff-fwd 1.11x .. ff-bwd 1.28x slower; BENCH_NOTES
-sessions 4-5) and was deleted this round per VERDICT r3 item 6 — the
-negative-result analysis lives in BENCH_NOTES. The unified-table
-builder (build_seed_table) now carries only the r3 prefix-jump rows.
+An in-loop s==1 fast-forward (six extra phases riding the shared
+gather) was measured slower in every configuration on the accelerator
+this was first built for, and was deleted. The unified-table builder
+(build_seed_table) carries only the r3 prefix-jump rows.
 
 State sizes are compile-time caps tuned for short reads (<= ~300 bp):
 ``P`` candidate intervals per pass and ``M`` output seeds per read; the
@@ -105,11 +101,10 @@ def _r3_jump_rows(fm: kfm.FMDevice, depth: int = JUMP_DEPTH) -> jnp.ndarray:
     return jnp.stack([row_a, row_b], axis=1).reshape(2 * K, 12)
 
 
-# v5e gathers slow down once the table leaves a fast tier. RE-MEASURED
-# round 3 (tools/ab_table_size.py, the real seeding loop with junk rows
-# appended): 5.1 -> 13.1 MB free, ~29 MB +6%, ~53 MB +66% — the round-1
-# "5.1 fast / 6.3 slow" cliff is gone on current libtpu. The depth-8
-# jump (+6.3 MB) fits under the knee at E. coli scale.
+# Table size below which the r3 jump rows are appended: the 20 MB value
+# is the fast gather tier of another accelerator, where the choice was
+# made; the GPU's tiers (a 50 MB L2) are not measured here (ROADMAP
+# Speed item 7).
 _FAST_TIER_BYTES = int(20 * (1 << 20))
 
 
@@ -149,8 +144,8 @@ def build_r3_jump(fm: kfm.FMDevice, depth: int | None = None,
 
     ``host_blocks`` (the numpy blocks table, e.g. ``idx.blocks``) lets
     multi-GB indexes splice the jump rows on HOST: the device
-    concatenate transiently multiplies the table allocation and OOMs a
-    16 GB HBM at GRCh38 scale. ``host_sa_bits`` must ride along there so
+    concatenate transiently multiplies the table allocation, which ran a
+    16 GB device out of memory at GRCh38 scale. ``host_sa_bits`` must ride along there so
     the spliced table keeps its in-row SA-mark words (pack_oct)."""
     import numpy as np
 
@@ -200,8 +195,8 @@ def build_seed_table(fm: kfm.FMDevice, idx, depth: int | None = None
                      ) -> tuple[kfm.FMDevice, SeedTable]:
     """Assemble the seeding table: the Occ octo rows plus the r3 jump
     rows (build_r3_jump). Multi-GB indexes splice on host (one
-    device_put) — device concatenates transiently double the allocation
-    and OOM a 16 GB HBM at GRCh38 scale.
+    device_put) — device concatenates transiently double the allocation,
+    which ran a 16 GB device out of memory at GRCh38 scale.
 
     ``idx`` is the host FMIndex. ``depth`` None auto-picks the jump
     depth (build_r3_jump rules); 0 disables the jump."""
@@ -344,9 +339,9 @@ def collect_seeds_device(
     if quad_rows is not None:
         KC = 1
     # fetch sharing: 74.6% of live iterations have both rank positions
-    # (a, a+s) inside ONE octo row (1024 bases; tools/iter_split.py
-    # census), and the shared gather is per-ROW bound (~2.9 ns/row,
-    # byte width free — tools/ab_quadrow.py). So fetch ONE row per lane
+    # (a, a+s) inside ONE octo row (1024 bases; an iteration census),
+    # and the shared gather was per-ROW bound on the accelerator this
+    # was designed for (not measured on the GPU). So fetch ONE row per lane
     # and decode both occ4 offsets from it; the ~25% split lanes stall
     # one iteration (pend2) to fetch the second row, with the first
     # decode held in o1hold. Exact: stalled lanes freeze their state,
@@ -387,12 +382,11 @@ def collect_seeds_device(
                                                   # prev (=cand) in reverse
         min_intv=jnp.ones(B, rdt),                # per-lane (round 2 overrides)
         # in-loop mems are FOUR (B, M) COLUMN arrays (k, s, start, end):
-        # a (B, M, 4) table tempts XLA into layouts whose 4-wide minor
-        # dim pads to 128 lanes — the per-iteration put_row fusion then
-        # materializes 32x the logical bytes (~2.3 ms/iteration,
-        # measured as an 11x loop slowdown; round 3 + XLA
-        # estimated_cycles). The dead l column is re-added to the
-        # 5-wide output layout only at return.
+        # a (B, M, 4) table tempted XLA, on the accelerator this was
+        # first built for, into a layout whose 4-wide minor dim padded
+        # to 128 lanes, and the per-iteration put_row fusion then
+        # materialized 32x the logical bytes. The dead l column is
+        # re-added to the 5-wide output layout only at return.
         mem_k=jnp.zeros((B, M), rdt),
         mem_s=jnp.zeros((B, M), rdt),
         mem_b=jnp.zeros((B, M), rdt),
@@ -490,7 +484,7 @@ def collect_seeds_device(
     def push_row(buf, n, row, do):
         """Append `row` to per-lane buffer where `do`; returns new buf, n, ovf.
 
-        One-hot write — no scatter (XLA TPU scatter is per-row-cost)."""
+        One-hot write — no scatter."""
         cap = buf.shape[1]
         ovf = do & (n >= cap)
         write = do & ~ovf
@@ -991,9 +985,8 @@ def collect_seeds_device(
         chunk = 32
 
         def bodyU(_, s):
-            # U state-machine steps per loop iteration: each while/fori
-            # iteration boundary costs ~40 us regardless of the body
-            # (see loops.chunked_while)
+            # U state-machine steps per loop iteration amortize the
+            # fixed cost of each iteration boundary (loops.chunked_while)
             for _u in range(U):
                 s = body(s)
             return s

@@ -6,7 +6,7 @@ clean-room equivalent of the ksw.c routine libbwa runs inside
 scores, end coordinates, gscore/gtle, and max_off — because CIGAR and
 region coordinates downstream depend on them (tests/test_sw_device.py).
 
-Shape strategy (SURVEY.md §7 "irregular control flow on TPU"): the DP
+Shape strategy (SURVEY.md §7 "irregular control flow"): the DP
 runs row-by-row over the target with the query dimension vectorized
 across lanes. The F (query-gap) state is a within-row prefix scan; with
 the kernel's zero-floor semantics it reduces to a running max of

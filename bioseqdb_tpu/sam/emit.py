@@ -150,7 +150,7 @@ def sam_record_pe(result: ReadResult, seq: str, qual: str | None = None,
 
     Carries the same optional-tag set as the single-end record — bwa
     emits NM/MD/AS/XS (and RG/SA/XA) on paired records too (mem_reg2aln
-    consumed at bwa.cpp:158; VERDICT r2 item 5). ``hit``/``pe``
+    consumed at bwa.cpp:158). ``hit``/``pe``
     override the default primary record — supplementary parts of a
     split read pass themselves with their own PEInfo."""
     pe = pe if pe is not None else result.pe

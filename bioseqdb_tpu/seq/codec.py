@@ -1,8 +1,8 @@
-"""2-bit nucleotide sequence codec — TPU-native NUCLSEQ replacement.
+"""2-bit nucleotide sequence codec — NUCLSEQ replacement.
 
 Replaces the reference's Postgres NUCLSEQ varlena datatype
 (reference: bioseqdb/sequence.{h,cpp}; FFI wrappers extension.cpp:46-150)
-with a numpy-backed value type designed to feed JAX/TPU arrays:
+with a numpy-backed value type designed to feed JAX device arrays:
 
 - the working representation is a dense ``uint8`` array of 2-bit codes
   (A=0, C=1, G=2, T=3) — directly usable as a device array — rather than

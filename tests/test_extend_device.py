@@ -31,7 +31,7 @@ def setup():
     return g, idx, kfm.FMDevice.from_host(idx)
 
 
-def run_device(fm, idx, reads_codes, opt, W=160, use_pallas_sw=False):
+def run_device(fm, idx, reads_codes, opt, W=160, sw_sort=False):
     B = len(reads_codes)
     codes = np.full((B, W), 4, np.int32)
     lens = np.zeros(B, np.int32)
@@ -63,7 +63,7 @@ def run_device(fm, idx, reads_codes, opt, W=160, use_pallas_sw=False):
         o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins,
         bandwidth=opt.bandwidth, zdrop=opt.zdrop,
         pen_clip5=opt.pen_clip5, pen_clip3=opt.pen_clip3,
-        use_pallas_sw=use_pallas_sw,
+        sw_sort=sw_sort,
     )
     return {k: (np.asarray(v) if not isinstance(v, dict)
                 else {k2: np.asarray(v2) for k2, v2 in v.items()})
@@ -119,22 +119,20 @@ def test_repeat_reads(setup):
     compare(setup, reads)
 
 
-def test_pallas_sorted_lanes_match_xla(setup):
-    """The Pallas SW path (with its work-sorted lane permutation,
-    kernels/extend.py sw_with_retry) must return exactly the XLA path's
-    regions — the permutation is unobservable. Interpret mode (slow):
-    tiny read set."""
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_sorted_lanes_match_unsorted(setup):
+    """The work-sorted lane permutation around each SW call
+    (kernels/extend.py sw_with_retry_local, on with the CUDA kernel) is
+    unobservable: with the XLA kernel, sorted and unsorted lanes give
+    equal regions."""
     g, idx, fm = setup
-    sim = simulate_reads(g, 6, read_len=120, sub_rate=0.04, seed=5)
+    sim = simulate_reads(g, 12, read_len=120, sub_rate=0.04, seed=5)
     rcs = [enc(r) for r in sim.reads]
     opt = AlignOptions()
     ref = run_device(fm, idx, rcs, opt)
-    with pltpu.force_tpu_interpret_mode():
-        got = run_device(fm, idx, rcs, opt, use_pallas_sw=True)
+    got = run_device(fm, idx, rcs, opt, sw_sort=True)
     assert (got["n_regs"] == ref["n_regs"]).all()
-    for f in ("rb", "re", "qb", "qe", "score", "truesc", "w"):
+    assert (got["overflow"] == ref["overflow"]).all()
+    for f in ref["regs"]:
         assert (got["regs"][f] == ref["regs"][f]).all(), f
 
 

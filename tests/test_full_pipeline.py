@@ -169,7 +169,7 @@ def test_chimeric_supplementary_flags(setup):
     assert sum(1 for f in flags if f & 0x800) == 1
 
     # SA:Z on every primary part, each listing the OTHER part with its
-    # soft-clip CIGAR (bwa mem_aln2sam; VERDICT r3 item 4)
+    # soft-clip CIGAR (bwa mem_aln2sam)
     assert prims[0].sa and prims[1].sa
     f0 = prims[0].sa.rstrip(";").split(",")
     assert f0[0] == prims[1].ref_name

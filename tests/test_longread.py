@@ -1,7 +1,7 @@
 """Long-read (>= ~900 bp) device-path agreement: the windowed seed-SW
 filter (kernels/seedsw.py == oracle flt_chained_seeds) runs ON DEVICE,
 so 1-3 kb reads finalize through the batched pipeline instead of
-collapsing to the scalar per-read oracle (VERDICT r2 item 8)."""
+collapsing to the scalar per-read oracle."""
 
 import numpy as np
 import pytest

@@ -349,7 +349,7 @@ def test_pe_chimeric_supplementary(setup):
     # a split R1 (two halves from far-apart loci) in a pair: the PE
     # path must emit the other primary part as a supplementary record
     # with 0x800 | PE flags, hard clips, and SA:Z on both parts
-    # (VERDICT r3 item 4; bwa mem_sam_pe behavior)
+    # (bwa mem_sam_pe behavior)
     g, idx, r1, r2, inserts = setup
     from bioseqdb_tpu.sam.emit import revcomp
 

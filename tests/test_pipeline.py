@@ -184,7 +184,6 @@ def test_exact_mode_field_complete(lambda_setup):
     # mode="exact" records carry the full bwa_result field set for what
     # they report: CIGAR/NM/MD/AS by construction, MAPQ/XS as the bwa
     # formula's exact outcome for full-length exact matches
-    # (VERDICT r3 item 8)
     g, idx, sim = lambda_setup
     al = Aligner.build(idx, AlignOptions(), mode="exact")
     batch = pack_reads(list(sim.reads[:20]), [f"r{i}" for i in range(20)])

@@ -167,7 +167,7 @@ def test_aligner_2d_mesh(setup):
 def test_sharded_int64_ranks_agree(setup):
     """Forced-int64 rank arithmetic through the sharded path (the
     GRCh38-class configuration: >2^31 conceptual ranks, int32 tables,
-    int64 rank values — VERDICT r1 item 3). Every sharded query must
+    int64 rank values). Every sharded query must
     equal the int32 unsharded reference on the same (small) index."""
     g, idx, mesh, fm, _ = setup
     sim = simulate_reads(g, 24, read_len=90, sub_rate=0.02, seed=17)

@@ -1,5 +1,4 @@
-"""Sharded-vs-replicated equality at REAL human scale (VERDICT r2
-item 6): load a >2^31-doubled-base saved index (int64 ranks over int32
+"""Sharded-vs-replicated equality at REAL human scale: load a >2^31-doubled-base saved index (int64 ranks over int32
 tables — the configuration where BWT-interval sharding is load-bearing,
 BASELINE config 4 scope), run the FULL sharded pipeline over a virtual
 (data x index) CPU mesh, and match the replicated pipeline's output on

@@ -2,7 +2,7 @@
 
 Loads the 3.1 Gbase index saved by tools/grch38_scale_check.py (6.2 G
 doubled bases -> int64 rank arithmetic under jax x64), puts the tables
-in one v5e's HBM (~6.5 GB), runs the FULL device pipeline on simulated
+(~6.5 GB) in one GPU's memory, runs the FULL device pipeline on simulated
 reads, validates against truth positions, and reports reads/s.
 
     PYTHONPATH=. python tools/grch38_chip_check.py [.bigindex] [batch]
@@ -24,9 +24,9 @@ def main():
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      __file__.rsplit("/", 2)[0] + "/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bioseqdb_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bioseqdb_tpu.align.finalize import finalize_batch
     from bioseqdb_tpu.align.options import AlignOptions

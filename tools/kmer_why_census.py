@@ -17,9 +17,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      __file__.rsplit("/", 2)[0] + "/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bioseqdb_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bioseqdb_tpu.align.options import AlignOptions
     from bioseqdb_tpu.index.builder import build_index

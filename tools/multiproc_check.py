@@ -1,4 +1,4 @@
-"""Multi-process distributed execution check (SURVEY §4, VERDICT r1 #6).
+"""Multi-process distributed execution check (SURVEY §4).
 
 Spawns N real `jax.distributed` processes on the CPU backend (each
 contributing its local virtual devices to one global mesh), runs the

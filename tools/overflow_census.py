@@ -1,8 +1,8 @@
 """Per-stage overflow census at a given genome scale.
 
-bench.py's chr20 leg measured 363/16384 reads (2.2%) overflowing to
-the host oracle — 4.8 s/batch of host finalize, 10x the device time.
-This splits the overflow by producing stage (seeding caps, seed
+Reads that overflow a device cap fall back to the host oracle, whose
+per-read cost makes a small overflow rate the whole batch cost at
+chr20 scale. This splits the overflow by producing stage (seeding caps, seed
 resolution, chaining, extension) and prints the tail distributions the
 caps cut, so the fix is a measured cap choice instead of a guess.
 
@@ -22,9 +22,9 @@ def log(*a):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      __file__.rsplit("/", 2)[0] + "/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bioseqdb_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from bioseqdb_tpu.align.options import AlignOptions

@@ -1,4 +1,4 @@
-"""chr20-scale PE finalize cost breakdown (VERDICT r4 item 4).
+"""chr20-scale PE finalize cost breakdown.
 
 Runs the fused pair dispatch once on the available backend to get real
 region tables, then profiles finalize_pairs_columns: slow-pair count
@@ -22,9 +22,9 @@ def log(*a):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      __file__.rsplit("/", 2)[0] + "/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bioseqdb_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bioseqdb_tpu.align import paired
     from bioseqdb_tpu.align.options import AlignOptions
